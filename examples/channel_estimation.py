@@ -19,8 +19,8 @@ if "--cpu" in sys.argv:
 
 import jax.numpy as jnp
 
-from jstsp19_tpu.core import prng
-from jstsp19_tpu.harness.pipeline import PointConfig, realization_errors
+from jstsp19.core import prng
+from jstsp19.harness.pipeline import PointConfig, realization_errors
 
 
 def main():

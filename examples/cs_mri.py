@@ -23,9 +23,9 @@ if "--cpu" in sys.argv:
 import jax.numpy as jnp
 import numpy as np
 
-from jstsp19_tpu.ops import MedImageOp
-from jstsp19_tpu.solvers import CAwgnLikelihood, CAwgnPrior, SparsePrior
-from jstsp19_tpu.solvers.gamp_full import GampOptions, gamp_est
+from jstsp19.ops import MedImageOp
+from jstsp19.solvers import CAwgnLikelihood, CAwgnPrior, SparsePrior
+from jstsp19.solvers.gamp_full import GampOptions, gamp_est
 
 
 def _phantom(ny, nx, rng):

@@ -20,7 +20,7 @@ if "--cpu" in sys.argv:
 import jax.numpy as jnp
 import numpy as np
 
-from jstsp19_tpu.solvers import bigamp_lite, em_bigamp_dl, em_bigamp_mc
+from jstsp19.solvers import bigamp_lite, em_bigamp_dl, em_bigamp_mc
 
 
 def nmse_db(Zhat, Z):

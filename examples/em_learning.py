@@ -19,8 +19,8 @@ if "--cpu" in sys.argv:
 import jax.numpy as jnp
 import numpy as np
 
-from jstsp19_tpu.ops import MatrixOp
-from jstsp19_tpu.solvers import em_bg_vamp, em_gm_vamp
+from jstsp19.ops import MatrixOp
+from jstsp19.solvers import em_bg_vamp, em_gm_vamp
 
 
 def main():

@@ -21,8 +21,8 @@ if "--cpu" in sys.argv:
 import jax.numpy as jnp
 import numpy as np
 
-from jstsp19_tpu.ops import MatrixOp
-from jstsp19_tpu.solvers import (
+from jstsp19.ops import MatrixOp
+from jstsp19.solvers import (
     AwgnPrior,
     CAwgnLikelihood,
     GampOptions,

@@ -22,7 +22,7 @@ if "--cpu" in sys.argv:
 import jax.numpy as jnp
 import numpy as np
 
-from jstsp19_tpu.solvers import hutamp
+from jstsp19.solvers import hutamp
 
 
 def main():

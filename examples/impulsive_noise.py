@@ -22,14 +22,14 @@ if "--cpu" in sys.argv:
 import jax.numpy as jnp
 import numpy as np
 
-from jstsp19_tpu.ops import MatrixOp
-from jstsp19_tpu.solvers import (
+from jstsp19.ops import MatrixOp
+from jstsp19.solvers import (
     AwbgnLikelihood,
     AwgnPrior,
     CAwgnLikelihood,
     SparsePrior,
 )
-from jstsp19_tpu.solvers.gamp_full import GampOptions, gamp_est
+from jstsp19.solvers.gamp_full import GampOptions, gamp_est
 
 
 def main():

@@ -22,16 +22,16 @@ if "xla_force_host_platform_device_count" not in flags:
 import jax
 
 # The virtual 8-device mesh only exists on the CPU platform: this demo is
-# CPU-only regardless of flags (a single real TPU chip cannot host it).
+# CPU-only regardless of flags.
 jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from jstsp19_tpu.channel import taps_to_subcarriers, wideband_mmwave_channel
-from jstsp19_tpu.core import prng
-from jstsp19_tpu.core.metrics import power_conventional_hbf, power_proposed
+from jstsp19.channel import taps_to_subcarriers, wideband_mmwave_channel
+from jstsp19.core import prng
+from jstsp19.core.metrics import power_conventional_hbf, power_proposed
 
 
 def main():

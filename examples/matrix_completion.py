@@ -14,8 +14,8 @@ if "--cpu" in sys.argv:
 
 import jax.numpy as jnp
 
-from jstsp19_tpu.core import prng
-from jstsp19_tpu.solvers import mc_svt, mc_admm, bigamp_mc
+from jstsp19.core import prng
+from jstsp19.solvers import mc_svt, mc_admm, bigamp_mc
 
 
 def main():

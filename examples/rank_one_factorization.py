@@ -20,7 +20,7 @@ if "--cpu" in sys.argv:
 import jax.numpy as jnp
 import numpy as np
 
-from jstsp19_tpu.solvers import (
+from jstsp19.solvers import (
     AwgnPrior,
     DiscretePrior,
     mc_prior_mse,

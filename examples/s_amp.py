@@ -25,9 +25,9 @@ if "--cpu" in sys.argv:
 import jax.numpy as jnp
 import numpy as np
 
-from jstsp19_tpu.ops import KronDictOp, MatrixOp
-from jstsp19_tpu.solvers import amp, amp_est, vamp_slm
-from jstsp19_tpu.solvers.estim import AwgnPrior, SparsePrior
+from jstsp19.ops import KronDictOp, MatrixOp
+from jstsp19.solvers import amp, amp_est, vamp_slm
+from jstsp19.solvers.estim import AwgnPrior, SparsePrior
 
 
 def main():

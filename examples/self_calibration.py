@@ -25,8 +25,8 @@ if "--cpu" in sys.argv:
 import jax.numpy as jnp
 import numpy as np
 
-from jstsp19_tpu.core import prng
-from jstsp19_tpu.solvers import CAwgnPrior, SparsePrior, pbigamp
+from jstsp19.core import prng
+from jstsp19.solvers import CAwgnPrior, SparsePrior, pbigamp
 
 
 def main():

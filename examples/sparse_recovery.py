@@ -19,13 +19,13 @@ if "--cpu" in sys.argv:
 import jax.numpy as jnp
 import numpy as np
 
-from jstsp19_tpu.core import prng
-from jstsp19_tpu.ops import MatrixOp, KronDictOp
-from jstsp19_tpu.solvers import (
+from jstsp19.core import prng
+from jstsp19.ops import MatrixOp, KronDictOp
+from jstsp19.solvers import (
     omp, cosamp, fista, gamp, vamp_slm, em_bg_vamp, em_gm_vamp,
     CAwgnPrior, SparsePrior, CAwgnLikelihood,
 )
-from jstsp19_tpu.solvers.gamp import amp, sure_amp
+from jstsp19.solvers.gamp import amp, sure_amp
 
 
 def main():

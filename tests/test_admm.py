@@ -5,15 +5,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from jstsp19_tpu.channel import wideband_mmwave_channel
-from jstsp19_tpu.core.metrics import clamped_nmse
-from jstsp19_tpu.frontend import (
+from jstsp19.channel import wideband_mmwave_channel
+from jstsp19.core.metrics import clamped_nmse
+from jstsp19.frontend import (
     create_beamformer,
     qam4_training_frames,
     awgn,
     proposed_hbf,
 )
-from jstsp19_tpu.solvers import (
+from jstsp19.solvers import (
     proposed_admm,
     proposed_admm_angles,
     admm_hyperparams,
@@ -150,8 +150,8 @@ def test_tracked_svt_matches_eigh_end_to_end(key):
     """svt_method='tracked' (warm-started spectral tracking, 8 Jacobi
     rounds per iteration) must match the eigh-based ADMM's NMSE on the
     canonical configuration."""
-    from jstsp19_tpu.harness.pipeline import PointConfig, realization_errors
-    from jstsp19_tpu.core import prng as _prng
+    from jstsp19.harness.pipeline import PointConfig, realization_errors
+    from jstsp19.core import prng as _prng
 
     keys = _prng.realization_keys(_prng.experiment_key(0), 0, 4)
     nv = jnp.asarray(1.0, jnp.float32)  # 0 dB
@@ -164,12 +164,12 @@ def test_tracked_svt_matches_eigh_end_to_end(key):
 
 
 def test_tracked_svt_single_round_matches_eigh():
-    """track_rounds=1 — the throughput setting (PERF.md) — must stay
+    """track_rounds=1 — the throughput setting — must stay
     per-realization-identical to eigh-SVT: the warm-started basis needs
     only one parallel-ordering rotation round per ADMM iteration at the
     canonical config (measured <= 8e-6 across SNR/quirks/angles)."""
-    from jstsp19_tpu.harness.pipeline import PointConfig, realization_errors
-    from jstsp19_tpu.core import prng as _prng
+    from jstsp19.harness.pipeline import PointConfig, realization_errors
+    from jstsp19.core import prng as _prng
 
     keys = _prng.realization_keys(_prng.experiment_key(0), 0, 4)
     for snr_db in (-9.0, 9.0):
@@ -197,8 +197,8 @@ def test_tracked_svt_thin_side_flip_matches_eigh():
     import jax.numpy as jnp
     import numpy as np
 
-    from jstsp19_tpu.core import prng
-    from jstsp19_tpu.harness.pipeline import PointConfig, realization_errors
+    from jstsp19.core import prng
+    from jstsp19.harness.pipeline import PointConfig, realization_errors
 
     nv = jnp.asarray(10 ** (-5 / 10), jnp.float32)
     keys = prng.realization_keys(prng.experiment_key(0), 0, 4)

@@ -10,9 +10,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from jstsp19_tpu.core import prng
-from jstsp19_tpu.ops import MatrixOp, KronDictOp, DFTOp
-from jstsp19_tpu.solvers.estim import (
+from jstsp19.core import prng
+from jstsp19.ops import MatrixOp, KronDictOp, DFTOp
+from jstsp19.solvers.estim import (
     AwgnPrior,
     CAwgnLikelihood,
     CAwgnPrior,
@@ -21,7 +21,7 @@ from jstsp19_tpu.solvers.estim import (
     MagnitudeLikelihood,
     SparsePrior,
 )
-from jstsp19_tpu.solvers.gamp import gamp
+from jstsp19.solvers.gamp import gamp
 
 
 def test_phase_retrieval_gamp():

@@ -2,9 +2,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from jstsp19_tpu.core import prng
-from jstsp19_tpu.solvers.bigamp import bigamp, bigamp_mc
-from jstsp19_tpu.solvers.estim import CAwgnPrior, SparsePrior
+from jstsp19.core import prng
+from jstsp19.solvers.bigamp import bigamp, bigamp_mc
+from jstsp19.solvers.estim import CAwgnPrior, SparsePrior
 
 
 def test_bigamp_matrix_completion():
@@ -50,7 +50,7 @@ def test_bigamp_dictionary_learning_sparse_codes():
 
 
 def test_bigamp_rpca_low_rank_plus_outliers():
-    from jstsp19_tpu.solvers.bigamp import bigamp_rpca
+    from jstsp19.solvers.bigamp import bigamp_rpca
 
     key = jax.random.key(2)
     L, M, R = 40, 50, 2
@@ -83,8 +83,8 @@ def test_em_bigamp_mc_learns_noise_and_rank():
     """EM-BiGAMP-MC: true rank 3 run at max_rank 8 — the learned component
     energies must separate true from spurious, and the noise variance
     must land near truth."""
-    from jstsp19_tpu.solvers.bigamp import em_bigamp_mc
-    from jstsp19_tpu.core import prng
+    from jstsp19.solvers.bigamp import em_bigamp_mc
+    from jstsp19.core import prng
 
     key = jax.random.key(13)
     L, M, R, maxR = 40, 56, 3, 8
@@ -112,7 +112,7 @@ def test_em_bigamp_dl_learns_sparse_codes():
     """EM-BiGAMP dictionary learning (EMBiGAMP_DL.m capability): recover a
     dictionary-sparse factorization and its hyperparameters (activity,
     slab variance, noise) from data alone."""
-    from jstsp19_tpu.solvers.bigamp import em_bigamp_dl
+    from jstsp19.solvers.bigamp import em_bigamp_dl
 
     key = jax.random.PRNGKey(7)
     L, R, M = 24, 5, 400

@@ -6,12 +6,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from jstsp19_tpu.solvers.bigamp_full import (
+from jstsp19.solvers.bigamp_full import (
     BigAmpOptions,
     bigamp_lite,
     bigamp_pev,
 )
-from jstsp19_tpu.solvers.estim import CAwgnPrior, SparsePrior
+from jstsp19.solvers.estim import CAwgnPrior, SparsePrior
 
 
 def _problem(seed=0, L=64, M=64, R=4, nuw=1e-4, frac=0.5):

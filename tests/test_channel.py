@@ -3,7 +3,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from jstsp19_tpu.channel import (
+from jstsp19.channel import (
     wideband_mmwave_channel,
     dft_dictionary,
     ula_steering,
@@ -105,7 +105,7 @@ def test_channel_jits_and_vmaps(key):
 # ---------------------------------------------------------------------------
 
 def test_quirk_laplacian_matches_matlab_formula(key):
-    from jstsp19_tpu.channel.widemmwave import quirk_laplacian
+    from jstsp19.channel.widemmwave import quirk_laplacian
 
     x = np.asarray(quirk_laplacian(key, (20000,)))
     # x = beta*(exp(-sqrt(2)pi/50) - cosh(u)), u~U(0,1):
@@ -172,7 +172,7 @@ def test_channel_quirks_jits_and_vmaps(key):
 def test_taps_to_subcarriers_aliases_instead_of_truncating(key):
     """H_k = sum over ALL L taps of H_l e^{-j2pi k l/K}: for K < L the
     taps alias onto the K-point grid (l mod K); they are not dropped."""
-    from jstsp19_tpu.channel import taps_to_subcarriers
+    from jstsp19.channel import taps_to_subcarriers
 
     H = jax.random.normal(key, (4, 3, 2)) + 1j * jax.random.normal(
         jax.random.fold_in(key, 1), (4, 3, 2)

@@ -10,8 +10,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from jstsp19_tpu.ops import MatrixOp
-from jstsp19_tpu.solvers import (
+from jstsp19.ops import MatrixOp
+from jstsp19.solvers import (
     MultiLogitLikelihood,
     ProbitLikelihood,
     RobustLogitLikelihood,
@@ -22,7 +22,7 @@ from jstsp19_tpu.solvers import (
     TDistLikelihood,
     gamp,
 )
-from jstsp19_tpu.solvers.estim import _t2_logcdf
+from jstsp19.solvers.estim import _t2_logcdf
 
 
 def _grid_moments(loglike_fn, phat, pvar, n=20001, span=12.0):

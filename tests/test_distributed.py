@@ -19,13 +19,13 @@ pytestmark = pytest.mark.slow
 
 
 def test_two_process_sweep_matches_single_process(tmp_path):
-    from jstsp19_tpu.parallel.launch import launch
+    from jstsp19.parallel.launch import launch
 
     out = tmp_path / "dist.json"
     launch(
         2,
         [
-            "-m", "jstsp19_tpu.parallel.dist_worker",
+            "-m", "jstsp19.parallel.dist_worker",
             "--methods", "ls,proposed",
             "--imax", "10",
             "--n-mc", "8",
@@ -42,8 +42,8 @@ def test_two_process_sweep_matches_single_process(tmp_path):
 
     # single-process oracle: identical keys -> identical realizations ->
     # the cross-process all-gather must reproduce the same means
-    from jstsp19_tpu.harness.pipeline import PointConfig
-    from jstsp19_tpu.harness.runner import run_point
+    from jstsp19.harness.pipeline import PointConfig
+    from jstsp19.harness.runner import run_point
 
     pc = PointConfig(methods=("ls", "proposed"), Imax=10, svt_method="tracked")
     for i, nv in enumerate([0.1, 0.5]):
@@ -64,12 +64,12 @@ def test_hybrid_mesh_spans_processes(tmp_path):
     failure)."""
     import json
 
-    from jstsp19_tpu.parallel.launch import launch
+    from jstsp19.parallel.launch import launch
 
     out = tmp_path / "hybrid.json"
     launch(
         2,
-        ["-m", "jstsp19_tpu.parallel.dist_hybrid", "--out", str(out)],
+        ["-m", "jstsp19.parallel.dist_hybrid", "--out", str(out)],
         devices_per_process=2,
         timeout=280,
         cwd=REPO,

@@ -2,9 +2,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from jstsp19_tpu.core import prng
-from jstsp19_tpu.ops import KronDictOp
-from jstsp19_tpu.solvers.em import em_bg_vamp
+from jstsp19.core import prng
+from jstsp19.ops import KronDictOp
+from jstsp19.solvers.em import em_bg_vamp
 
 
 def test_em_bg_vamp_learns_noise_and_sparsity():
@@ -34,8 +34,8 @@ def test_em_bg_vamp_learns_noise_and_sparsity():
 
 def test_em_gm_vamp_learns_mixture():
     """Full EM-GM-AMP: two-scale GM amplitudes, everything learned."""
-    from jstsp19_tpu.solvers.em import em_gm_vamp
-    from jstsp19_tpu.ops import MatrixOp
+    from jstsp19.solvers.em import em_gm_vamp
+    from jstsp19.ops import MatrixOp
 
     key = jax.random.key(3)
     m, n, beta = 200, 400, 0.06
@@ -57,8 +57,8 @@ def test_em_gm_vamp_learns_mixture():
 
 def test_em_nngm_gamp_recovers_nonnegative():
     """EMNNAMP: sparse non-negative signal, no hand-tuned hyperparameters."""
-    from jstsp19_tpu.solvers.em import em_nngm_gamp
-    from jstsp19_tpu.ops import MatrixOp
+    from jstsp19.solvers.em import em_nngm_gamp
+    from jstsp19.ops import MatrixOp
 
     key = jax.random.key(7)
     m, n, k = 160, 320, 16

@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from jstsp19_tpu.solvers.estim import (
+from jstsp19.solvers.estim import (
     DiscretePrior,
     EllpPrior,
     GroupSparsePrior,

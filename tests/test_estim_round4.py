@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from jstsp19_tpu.solvers.estim import AwbgnLikelihood, CAwgnLikelihood
+from jstsp19.solvers.estim import AwbgnLikelihood, CAwgnLikelihood
 
 
 def _awbgn_moments_oracle(y, wvar, lam, phat, pvar):
@@ -88,9 +88,9 @@ def test_awbgn_gamp_impulsive_recovery():
     """End-to-end: sparse-signal recovery through an impulsive (AWBGN)
     channel — the delta-spike-aware likelihood must beat the naive AWGN
     likelihood mismatched to the impulse variance."""
-    from jstsp19_tpu.ops import MatrixOp
-    from jstsp19_tpu.solvers.estim import AwgnPrior, SparsePrior
-    from jstsp19_tpu.solvers.gamp_full import GampOptions, gamp_est
+    from jstsp19.ops import MatrixOp
+    from jstsp19.solvers.estim import AwgnPrior, SparsePrior
+    from jstsp19.solvers.gamp_full import GampOptions, gamp_est
 
     rng = np.random.default_rng(0)
     n, m, k = 200, 120, 12
@@ -138,7 +138,7 @@ def test_tn_moments_flat_prior_limit_is_uniform():
     """Finite-interval moments at pvar >> width^2 (e.g. VAMP-GLM's
     GAM_MIN=1e-11 init): the shared pvar cap must return the uniform-cell
     moments instead of cancelling to zhat=0 / zvar garbage."""
-    from jstsp19_tpu.solvers.estim import QuantizedLikelihood
+    from jstsp19.solvers.estim import QuantizedLikelihood
 
     lo, hi = 0.0, 0.01
     like = QuantizedLikelihood(lo=jnp.asarray(lo), hi=jnp.asarray(hi))
@@ -150,7 +150,7 @@ def test_tn_moments_flat_prior_limit_is_uniform():
 def test_unif_prior_large_rvar_finite():
     """UnifPrior at huge rvar previously returned (nan, nan) — both
     normalized edges collapsed to the same f32 logcdf value."""
-    from jstsp19_tpu.solvers.estim import UnifPrior
+    from jstsp19.solvers.estim import UnifPrior
 
     p = UnifPrior(0.0, 0.01)
     for rvar in (1e11, 1e16):
@@ -165,7 +165,7 @@ def test_unif_prior_large_rvar_finite():
 def test_log_ndiff_degenerate_interval_finite():
     """log1mexp branch: exp(d) rounds to 1.0 below f32 eps, so the old
     min(d, -1e-20) clamp produced -inf and downstream NaNs."""
-    from jstsp19_tpu.solvers.estim import _log_ndiff
+    from jstsp19.solvers.estim import _log_ndiff
 
     v = float(_log_ndiff(jnp.asarray(0.1), jnp.asarray(0.1)))
     assert np.isfinite(v) and v < -20.0  # tiny mass, finite log
@@ -174,7 +174,7 @@ def test_log_ndiff_degenerate_interval_finite():
 def test_ellp_dmm_p_below_one_zero_entries_finite():
     """p < 1 made mag**(p-2) overflow at the 1e-30 clamp; inf * inactive
     gave NaN xvar on the standard all-zero init."""
-    from jstsp19_tpu.solvers.estim import EllpDMMPrior
+    from jstsp19.solvers.estim import EllpDMMPrior
 
     xhat, xvar = EllpDMMPrior(alpha=1.5, p=0.5).estim(
         jnp.asarray([0.0, 1.0]), jnp.asarray([0.01, 0.01])
@@ -187,8 +187,8 @@ def test_svt_nan_resets_whole_matrix():
     """svt.m's `if(~isnan(softThres))` is a MATRIX condition: any
     non-finite input entry maps the whole (batch element's) matrix to
     zeros — not just the offending entry."""
-    from jstsp19_tpu.ops.jacobi import svt_jacobi
-    from jstsp19_tpu.solvers.lowrank import svt
+    from jstsp19.ops.jacobi import svt_jacobi
+    from jstsp19.solvers.lowrank import svt
 
     rng = np.random.default_rng(0)
     Y = jnp.asarray(

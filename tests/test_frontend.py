@@ -3,8 +3,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from jstsp19_tpu.channel import wideband_mmwave_channel
-from jstsp19_tpu.frontend import (
+from jstsp19.channel import wideband_mmwave_channel
+from jstsp19.frontend import (
     create_beamformer,
     qam4_mod,
     qam4_demod,

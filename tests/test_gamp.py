@@ -2,9 +2,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from jstsp19_tpu.ops import MatrixOp
-from jstsp19_tpu.solvers.estim import CAwgnPrior, SparsePrior, CAwgnLikelihood
-from jstsp19_tpu.solvers.gamp import gamp, fista
+from jstsp19.ops import MatrixOp
+from jstsp19.solvers.estim import CAwgnPrior, SparsePrior, CAwgnLikelihood
+from jstsp19.solvers.gamp import gamp, fista
 
 
 def crandn(key, shape, var=1.0):
@@ -68,7 +68,7 @@ def test_fista_recovers_sparse_vector(key):
 
 
 def test_amp_recovers_sparse_vector(key):
-    from jstsp19_tpu.solvers.gamp import amp
+    from jstsp19.solvers.gamp import amp
 
     A, x, y, nv, beta = _sparse_problem(key, m=200, n=400, k=15, snr_db=30.0)
     op = MatrixOp(A)
@@ -84,9 +84,9 @@ def test_amp_recovers_sparse_vector(key):
 def test_amp_matches_state_evolution(key):
     """Empirical AMP MSE should track the gampSE-style state-evolution
     prediction (the reference's strongest analytic oracle)."""
-    from jstsp19_tpu.solvers.gamp import amp
-    from jstsp19_tpu.solvers.vamp_slm import amp_se
-    from jstsp19_tpu.core import prng as _prng
+    from jstsp19.solvers.gamp import amp
+    from jstsp19.solvers.vamp_slm import amp_se
+    from jstsp19.core import prng as _prng
 
     m, n, k, snr_db = 256, 512, 25, 25.0
     A, x, y, nv, beta = _sparse_problem(key, m=m, n=n, k=k, snr_db=snr_db)
@@ -115,7 +115,7 @@ def test_amp_matches_state_evolution(key):
 
 def test_sure_amp_recovers_sparse_vector(key):
     """SURE-tuned AMP needs no prior parameters at all (SURE_BAMP parity)."""
-    from jstsp19_tpu.solvers.gamp import sure_amp
+    from jstsp19.solvers.gamp import sure_amp
 
     A, x, y, nv, beta = _sparse_problem(key, m=256, n=512, k=20, snr_db=30.0)
     op = MatrixOp(A)
@@ -127,7 +127,7 @@ def test_sure_amp_recovers_sparse_vector(key):
 def test_gamp_real_nonneg_prior_keeps_real_state(key):
     """A fully-real problem (non-negative spike-slab prior, real matrix and
     observation) must run GAMP with a float32 state and recover the signal."""
-    from jstsp19_tpu.solvers.estim import NNGMPrior
+    from jstsp19.solvers.estim import NNGMPrior
 
     m, n, k = 128, 256, 12
     kA, kx, ki, kn = jax.random.split(key, 4)
@@ -169,7 +169,7 @@ def test_gamp_adaptive_step(key):
     # correlated columns: fixed step NaNs, adaptive stays finite
     m, n, k = 128, 256, 12
     kA, kB, kx, ki, kn = jax.random.split(key, 5)
-    from jstsp19_tpu.core import prng as _prng
+    from jstsp19.core import prng as _prng
 
     U = _prng.complex_normal(kA, (m, 30))
     V = _prng.complex_normal(kB, (30, n))
@@ -209,8 +209,8 @@ def _spectrum_problem(cond, n=256, m=128, k=12, wvar=1e-5, seed=0):
     idx = rng.choice(n, k, False)
     x[idx] = rng.standard_normal(k)
     y = A @ x + np.sqrt(wvar) * rng.standard_normal(m)
-    from jstsp19_tpu.ops import MatrixOp
-    from jstsp19_tpu.solvers.estim import AwgnPrior, SparsePrior
+    from jstsp19.ops import MatrixOp
+    from jstsp19.solvers.estim import AwgnPrior, SparsePrior
 
     op = MatrixOp(jnp.asarray(A, jnp.float32))
     prior = SparsePrior(base=AwgnPrior(mean0=0.0, var0=1.0), p1=k / n)
@@ -225,7 +225,7 @@ def test_amp_est_rvar_methods_agree_on_flat_spectrum():
     """ampEst.m's standard-branch rvar methods ('mean'/'median'/'wvar',
     ampEst.m:232-246) and the S-AMP branch all recover a well-conditioned
     unitarily-invariant problem to the same accuracy."""
-    from jstsp19_tpu.solvers import amp_est
+    from jstsp19.solvers import amp_est
 
     op, prior, y, x, evals, wvar = _spectrum_problem(cond=1.0)
     for kwargs in (
@@ -243,7 +243,7 @@ def test_s_amp_recovers_where_standard_amp_fails():
     1-1/S(-xvar/rvar), rvar = wvar*S(-xvar/rvar) bisection fixed point)
     on a condition-10 log-spectrum ensemble: standard AMP diverges, S-AMP
     with damp=0.5 recovers to noise level."""
-    from jstsp19_tpu.solvers import amp, amp_est
+    from jstsp19.solvers import amp, amp_est
 
     op, prior, y, x, evals, wvar = _spectrum_problem(cond=10.0)
     nmse_amp = _nmse_np(amp(y, op, prior, nit=100), x)

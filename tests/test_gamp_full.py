@@ -8,16 +8,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from jstsp19_tpu.ops.base import MatrixOp
-from jstsp19_tpu.ops.structured import UnifVarOp, demean_rc, fxnhandle_op
-from jstsp19_tpu.solvers.estim import (
+from jstsp19.ops.base import MatrixOp
+from jstsp19.ops.structured import UnifVarOp, demean_rc, fxnhandle_op
+from jstsp19.solvers.estim import (
     AwgnPrior,
     CAwgnLikelihood,
     CAwgnPrior,
     SoftThreshPrior,
     SparsePrior,
 )
-from jstsp19_tpu.solvers.gamp_full import GampOptions, gamp_est
+from jstsp19.solvers.gamp_full import GampOptions, gamp_est
 
 
 def _bg_problem(seed=0, n=128, m=64, k=8, wvar=1e-3, cplx=True, mean=0.0):
@@ -264,7 +264,7 @@ def test_hist_intvl_decimates_histories():
 def test_xvar0auto_from_good_point_estimate():
     """``xvar0auto`` (gampEst.m:292-330): with xhat0 = x0 the derived
     xvar0 is far below the prior variance, and GAMP still converges."""
-    from jstsp19_tpu.solvers.gamp_full import _xvar0_auto
+    from jstsp19.solvers.gamp_full import _xvar0_auto
 
     prior, like, op, x = _bg_problem()
     opts = GampOptions(nit=50, xvar0auto=True)

@@ -6,15 +6,15 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from jstsp19_tpu.ops.base import MatrixOp
-from jstsp19_tpu.solvers.estim import (
+from jstsp19.ops.base import MatrixOp
+from jstsp19.solvers.estim import (
     AwgnPrior,
     CAwgnLikelihood,
     ProbitLikelihood,
     SparsePrior,
 )
-from jstsp19_tpu.solvers.gamp_full import GampOptions, gamp_est
-from jstsp19_tpu.solvers.gamp_se import (
+from jstsp19.solvers.gamp_full import GampOptions, gamp_est
+from jstsp19.solvers.gamp_se import (
     AwgnOutAvg,
     MCOutAvg,
     bg_sampler,

@@ -11,8 +11,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from jstsp19_tpu.core import prng
-from jstsp19_tpu.harness.pipeline import PointConfig, realization_errors
+from jstsp19.core import prng
+from jstsp19.harness.pipeline import PointConfig, realization_errors
 
 
 GOLDEN = {
@@ -45,7 +45,7 @@ def test_golden_canonical_realization():
 
 def test_golden_channel_moments():
     ch_fn = jax.jit(
-        lambda k: __import__("jstsp19_tpu.channel", fromlist=["x"]).wideband_mmwave_channel(
+        lambda k: __import__("jstsp19.channel", fromlist=["x"]).wideband_mmwave_channel(
             k, 4, 32, 4, 2, 3, 32, 4
         ).Zbar
     )

@@ -2,8 +2,8 @@
 import numpy as np
 import pytest
 
-from jstsp19_tpu.harness import PointConfig, run_sweep, get_experiment
-from jstsp19_tpu.harness.runner import run_point, default_mesh
+from jstsp19.harness import PointConfig, run_sweep, get_experiment
+from jstsp19.harness.runner import run_point, default_mesh
 
 
 def test_run_point_all_methods():
@@ -113,7 +113,7 @@ def test_achievable_rate_closed_form():
     random Zbar, and analytically on a diagonal one."""
     import jax.numpy as jnp
 
-    from jstsp19_tpu.core.metrics import achievable_rate
+    from jstsp19.core.metrics import achievable_rate
 
     rng = np.random.default_rng(0)
     Z = jnp.asarray(
@@ -165,9 +165,9 @@ def test_rank_r_quirks_spectra_drop_at_marker():
 def test_fastest_point_config_kernel_choices():
     """bench_all and time_comparisons share one source of truth for each
     family's fastest kernel configuration."""
-    from jstsp19_tpu.harness.pipeline import fastest_point_config
+    from jstsp19.harness.pipeline import fastest_point_config
 
-    for m in ("proposed", "proposed_angles", "svt", "tssr"):
+    for m in ("proposed", "proposed_angles", "svt", "tssr", "mc_admm"):
         assert fastest_point_config(m).svt_method == "tracked", m
     for m in ("ls", "vamp", "omp_mmv", "omp_td"):
         assert fastest_point_config(m).svt_method == "eigh", m
@@ -179,8 +179,8 @@ def test_t_hbf_matlab_rounding():
     broke the fair-training budget at shipped sweep points (round 5):
     errorVSnrf's Mr=16/T=5 has T/(Nr/Mr)=2.5 -> T_hbf must be 3*Nt=12
     (MATLAB round(2.5)=3), not 8; errorVSdelays' T=20 point likewise."""
-    from jstsp19_tpu.core.config import matlab_round
-    from jstsp19_tpu.harness.pipeline import PointConfig
+    from jstsp19.core.config import matlab_round
+    from jstsp19.harness.pipeline import PointConfig
 
     assert matlab_round(2.5) == 3
     assert matlab_round(-2.5) == -3

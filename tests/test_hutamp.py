@@ -4,7 +4,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from jstsp19_tpu.solvers.hutamp import hutamp
+from jstsp19.solvers.hutamp import hutamp
 
 
 def test_hutamp_unmixes_synthetic_scene():

@@ -2,8 +2,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from jstsp19_tpu.ops.jacobi import jacobi_eigh, svt_jacobi
-from jstsp19_tpu.solvers.lowrank import svt
+from jstsp19.ops.jacobi import jacobi_eigh, svt_jacobi
+from jstsp19.solvers.lowrank import svt
 
 
 def _rand_herm(seed, batch, n):

@@ -8,8 +8,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from jstsp19_tpu.ops import MedImageOp
-from jstsp19_tpu.utils import DisDist, weibull_grid
+from jstsp19.ops import MedImageOp
+from jstsp19.utils import DisDist, weibull_grid
 
 
 def test_disdist_moments_and_sampling():
@@ -57,9 +57,9 @@ def test_medimage_cs_mri_recovery():
     """CS-MRI capability: recover a wavelet-sparse image from 40% k-space
     through GAMP with the MedImageOp — the ``MRI/`` application family's
     acquisition operator."""
-    from jstsp19_tpu.solvers import CAwgnLikelihood, CAwgnPrior, SparsePrior
-    from jstsp19_tpu.solvers.gamp_full import GampOptions, gamp_est
-    from jstsp19_tpu.ops import MatrixOp  # noqa: F401  (import check)
+    from jstsp19.solvers import CAwgnLikelihood, CAwgnPrior, SparsePrior
+    from jstsp19.solvers.gamp_full import GampOptions, gamp_est
+    from jstsp19.ops import MatrixOp  # noqa: F401  (import check)
 
     rng = np.random.default_rng(1)
     ny = nx = 32
@@ -90,7 +90,7 @@ def test_medimage_cs_mri_recovery():
 
 def test_truth_reporter_passthrough():
     """The reporter must not alter the wrapped prior's messages."""
-    from jstsp19_tpu.solvers import AwgnPrior, SparsePrior, TruthReporterPrior
+    from jstsp19.solvers import AwgnPrior, SparsePrior, TruthReporterPrior
 
     base = SparsePrior(base=AwgnPrior(mean0=0.0, var0=1.0), p1=0.1)
     truth = jnp.asarray(np.linspace(-1, 1, 32), jnp.float32)

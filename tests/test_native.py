@@ -2,7 +2,7 @@
 import numpy as np
 import pytest
 
-from jstsp19_tpu.utils import native_available, native_fwht, native_sparse_conj_mult
+from jstsp19.utils import native_available, native_fwht, native_sparse_conj_mult
 
 pytestmark = pytest.mark.skipif(
     not native_available(), reason="g++ build unavailable"
@@ -10,7 +10,7 @@ pytestmark = pytest.mark.skipif(
 
 
 def test_native_fwht_matches_jax():
-    from jstsp19_tpu.ops.fourier import fwht
+    from jstsp19.ops.fourier import fwht
     import jax.numpy as jnp
 
     rng = np.random.default_rng(0)

@@ -6,7 +6,7 @@ import pytest
 
 scipy_io = pytest.importorskip("scipy.io")
 
-from jstsp19_tpu.channel.nyu import load_nyu_taps, normalize_taps
+from jstsp19.channel.nyu import load_nyu_taps, normalize_taps
 
 
 def _write_mat(path, n_real=4, L=3, Nr=16, Nt=4, seed=0):
@@ -35,7 +35,7 @@ def test_load_nyu_taps_and_normalize(tmp_path):
 
 
 def test_nyuwireless_sweep_on_ingested_channels(tmp_path):
-    from jstsp19_tpu.harness import EXPERIMENTS
+    from jstsp19.harness import EXPERIMENTS
 
     p = str(tmp_path / "nyu.mat")
     _write_mat(p, n_real=2, L=3, Nr=16, Nt=4)

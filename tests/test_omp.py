@@ -2,7 +2,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from jstsp19_tpu.solvers import omp, omp_mmv, cosamp
+from jstsp19.solvers import omp, omp_mmv, cosamp
 
 
 def crandn(key, shape):
@@ -85,7 +85,7 @@ def test_omp_td_equals_explicit_kron_omp(key):
     import jax
     import jax.numpy as jnp
 
-    from jstsp19_tpu.solvers import omp, omp_td
+    from jstsp19.solvers import omp, omp_td
 
     k1, k2, k3 = jax.random.split(key, 3)
     M, Gr, K, T = 12, 8, 6, 10
@@ -133,7 +133,7 @@ def test_omp_gram_kron_matches_dense_kron():
     must reproduce the dense-kron omp_gram run exactly: same support
     sequence, same coefficients (identical g/rhs gathers -> identical
     bordered-inverse chain)."""
-    from jstsp19_tpu.solvers.omp import omp_gram, omp_gram_kron
+    from jstsp19.solvers.omp import omp_gram, omp_gram_kron
 
     rng = np.random.default_rng(17)
     na, nb, M, T, k = 16, 8, 12, 20, 25

@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from jstsp19_tpu.ops import (
+from jstsp19.ops import (
     MatrixOp,
     ScaledOp,
     ComposedOp,
@@ -172,7 +172,7 @@ def test_sq_ops_nonnegative(key):
 
 
 def test_blockdiag_op(key):
-    from jstsp19_tpu.ops import BlockDiagOp
+    from jstsp19.ops import BlockDiagOp
 
     A = crandn(key, (3, 5, 4))
     op = BlockDiagOp(A)
@@ -183,7 +183,7 @@ def test_blockdiag_op(key):
 
 
 def test_concat_op(key):
-    from jstsp19_tpu.ops import ConcatOp
+    from jstsp19.ops import ConcatOp
 
     A1 = crandn(key, (6, 4))
     A2 = crandn(jax.random.fold_in(key, 1), (3, 4))
@@ -200,7 +200,7 @@ def test_concat_op(key):
 
 def test_dct_matches_scipy_and_adjoint(key):
     import scipy.fft
-    from jstsp19_tpu.ops import DCTOp, dct, idct
+    from jstsp19.ops import DCTOp, dct, idct
 
     for n in (8, 9, 32, 33):
         x = np.random.default_rng(n).normal(size=n).astype(np.float32)

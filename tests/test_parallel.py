@@ -3,17 +3,17 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from jstsp19_tpu.channel import wideband_mmwave_channel
-from jstsp19_tpu.core import prng
-from jstsp19_tpu.frontend import (
+from jstsp19.channel import wideband_mmwave_channel
+from jstsp19.core import prng
+from jstsp19.frontend import (
     awgn,
     create_beamformer,
     proposed_hbf,
     qam4_training_frames,
 )
-from jstsp19_tpu.parallel import make_mesh, mesh_shape_for, sharded_admm_step
-from jstsp19_tpu.parallel.sharded_admm import reference_admm_batch
-from jstsp19_tpu.solvers import admm_hyperparams
+from jstsp19.parallel import make_mesh, mesh_shape_for, sharded_admm_step
+from jstsp19.parallel.sharded_admm import reference_admm_batch
+from jstsp19.solvers import admm_hyperparams
 
 
 def test_mesh_shape_factoring():

@@ -17,7 +17,7 @@ import pytest
 
 sys.path.insert(0, "tools")
 
-from jstsp19_tpu.core import prng  # noqa: E402
+from jstsp19.core import prng  # noqa: E402
 from parity_campaign import _closure_realization  # noqa: E402
 
 N_MC = 16

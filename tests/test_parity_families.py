@@ -18,8 +18,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from jstsp19_tpu.core import prng
-from jstsp19_tpu.harness.pipeline import PointConfig, realization_errors
+from jstsp19.core import prng
+from jstsp19.harness.pipeline import PointConfig, realization_errors
 
 N_MC = 16
 METHODS = ("proposed", "proposed_angles", "ls", "vamp")

@@ -25,7 +25,7 @@ import jax
 import numpy as np
 import pytest
 
-from jstsp19_tpu.harness.pipeline import PointConfig, realization_errors
+from jstsp19.harness.pipeline import PointConfig, realization_errors
 
 # Reference single-draw NMSE from results/errorVSsnr_angles.fig at the
 # shared SNR grid points (extracted from the .fig line objects).

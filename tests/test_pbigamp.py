@@ -2,9 +2,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from jstsp19_tpu.core import prng
-from jstsp19_tpu.solvers.estim import CAwgnPrior, SparsePrior
-from jstsp19_tpu.solvers.pbigamp import pbigamp
+from jstsp19.core import prng
+from jstsp19.solvers.estim import CAwgnPrior, SparsePrior
+from jstsp19.solvers.pbigamp import pbigamp
 
 
 def _align(est, true):
@@ -85,7 +85,7 @@ def test_em_pbigamp_calibration_learns_hyperparams():
     testbed the EM wrapper must recover z, the AWGN noise variance, and the
     sparse-c activity rate without being told any of them."""
     import numpy as np
-    from jstsp19_tpu.solvers.pbigamp import em_pbigamp
+    from jstsp19.solvers.pbigamp import em_pbigamp
 
     rng = np.random.default_rng(0)
     M, Nb, Nc, k = 300, 8, 64, 6

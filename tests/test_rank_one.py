@@ -11,7 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from jstsp19_tpu.solvers import (
+from jstsp19.solvers import (
     AwgnPrior,
     DiscretePrior,
     mc_prior_mse,

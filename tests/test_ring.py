@@ -7,7 +7,7 @@ import numpy as np
 from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from jstsp19_tpu.parallel.ring import (
+from jstsp19.parallel.ring import (
     mc_mean_ring,
     ring_allreduce_mean,
     ring_pipeline_map,

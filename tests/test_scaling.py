@@ -1,5 +1,5 @@
-from jstsp19_tpu.harness.pipeline import PointConfig
-from jstsp19_tpu.parallel.scaling import scaling_benchmark
+from jstsp19.harness.pipeline import PointConfig
+from jstsp19.parallel.scaling import scaling_benchmark
 
 
 def test_scaling_benchmark_runs_on_virtual_mesh():

@@ -2,7 +2,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from jstsp19_tpu.solvers import svt, mc_svt, mc_admm, soft_threshold, sparse_admm
+from jstsp19.solvers import svt, mc_svt, mc_admm, soft_threshold, sparse_admm
 
 
 def crandn(key, shape):
@@ -83,7 +83,7 @@ def test_soft_threshold():
 
 
 def test_sparse_admm_recovers_sparse_beamspace(key):
-    from jstsp19_tpu.channel import dft_dictionary
+    from jstsp19.channel import dft_dictionary
 
     Mr, Mt = 16, 8
     Dr = dft_dictionary(Mr, Mr) * np.sqrt(Mr)  # unitary scaling
@@ -127,10 +127,10 @@ def test_mc_admm_tracked_matches_eigh():
     match the eigh path.  (Basis-tracking fidelity depends on how fast the
     SVT input drifts — for tiny rho the dual swings outpace one rotation
     round per step; the canonical driver's rho tracks to ~1e-4.)"""
-    from jstsp19_tpu.core import prng
-    from jstsp19_tpu.core.metrics import clamped_nmse
-    from jstsp19_tpu.harness.pipeline import PointConfig, _proposed_frontend
-    from jstsp19_tpu.solvers import ls_estimate
+    from jstsp19.core import prng
+    from jstsp19.core.metrics import clamped_nmse
+    from jstsp19.harness.pipeline import PointConfig, _proposed_frontend
+    from jstsp19.solvers import ls_estimate
 
     pc = PointConfig()
     nv = jnp.asarray(1.0, jnp.float32)

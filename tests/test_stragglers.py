@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from jstsp19_tpu.ops import MatrixOp, genie_normal_matvec, sparse_signed_op
-from jstsp19_tpu.solvers import s_transform
+from jstsp19.ops import MatrixOp, genie_normal_matvec, sparse_signed_op
+from jstsp19.solvers import s_transform
 
 
 def test_sparse_signed_op_structure(key):

@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from jstsp19_tpu.ops import (
+from jstsp19.ops import (
     CenterOp,
     HaarOp,
     IdentityOp,

@@ -2,11 +2,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from jstsp19_tpu.core import prng
-from jstsp19_tpu.ops import KronDictOp
-from jstsp19_tpu.solvers.estim import CAwgnPrior, SparsePrior
-from jstsp19_tpu.solvers.turbo import turbo_markov_vamp, _markov_extrinsic
-from jstsp19_tpu.solvers.vamp_slm import vamp_slm
+from jstsp19.core import prng
+from jstsp19.ops import KronDictOp
+from jstsp19.solvers.estim import CAwgnPrior, SparsePrior
+from jstsp19.solvers.turbo import turbo_markov_vamp, _markov_extrinsic
+from jstsp19.solvers.vamp_slm import vamp_slm
 
 
 def _block_sparse_problem(key, Gr=32, K=8, N=16, M=30, nv=5e-2):
@@ -66,7 +66,7 @@ def test_turbo_beats_iid_prior_on_block_sparse(key):
 
 
 def test_gauss_markov_extrinsic_interpolates():
-    from jstsp19_tpu.solvers.turbo import _gauss_markov_extrinsic
+    from jstsp19.solvers.turbo import _gauss_markov_extrinsic
 
     # chain of 7, observe nodes 1 and 5 at value ~2, middle unobserved:
     # the extrinsic mean at node 3 should be pulled toward 2
@@ -81,7 +81,7 @@ def test_gauss_markov_extrinsic_interpolates():
 def test_turbo_gauss_markov_beats_iid_on_smooth_amplitudes(key):
     """Dense smooth (AR(1)) amplitude sequence, undersampled: the
     Gauss-Markov amplitude structure must beat the iid Gaussian prior."""
-    from jstsp19_tpu.solvers.turbo import turbo_gauss_markov_vamp
+    from jstsp19.solvers.turbo import turbo_gauss_markov_vamp
 
     n, m, alpha, nv = 96, 48, 0.05, 1e-2
     a = 1 - alpha
@@ -94,7 +94,7 @@ def test_turbo_gauss_markov_beats_iid_on_smooth_amplitudes(key):
     _, theta = jax.lax.scan(ar, w[0], w)
     A = prng.complex_normal(kA, (m, n)) / np.sqrt(m)
     y = A @ theta + prng.complex_normal(kn, (m,), var=nv)
-    from jstsp19_tpu.ops import MatrixOp
+    from jstsp19.ops import MatrixOp
     op = MatrixOp(A)
 
     prior = SparsePrior(
@@ -118,7 +118,7 @@ def test_turbo_gauss_markov_beats_iid_on_smooth_amplitudes(key):
 def test_turbo_mrf_beats_iid_on_clustered_support(key):
     """2-D blob support on the coefficient grid: the row+column MRF
     decomposition must beat both the iid prior."""
-    from jstsp19_tpu.solvers.turbo import turbo_mrf_vamp
+    from jstsp19.solvers.turbo import turbo_mrf_vamp
 
     kA, kB, kx, kn = jax.random.split(key, 4)
     Gr, K, N, M, nv = 32, 16, 14, 28, 5e-2

@@ -8,8 +8,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from jstsp19_tpu.ops.base import MatrixOp
-from jstsp19_tpu.solvers.turbo_em import (
+from jstsp19.ops.base import MatrixOp
+from jstsp19.solvers.turbo_em import (
     em_turbo_gauss_markov_vamp,
     em_turbo_markov_vamp,
     markov_fb,

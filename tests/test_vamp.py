@@ -2,8 +2,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from jstsp19_tpu.ops import KronDictOp
-from jstsp19_tpu.solvers import (
+from jstsp19.ops import KronDictOp
+from jstsp19.solvers import (
     CAwgnPrior,
     SparsePrior,
     CAwgnLikelihood,
@@ -117,8 +117,8 @@ def test_vamp_equals_lmmse_oracle_gaussian_prior(key):
 
 def test_vamp_mmwave_pipeline_runs(key):
     # Smoke test on the actual driver-shaped problem.
-    from jstsp19_tpu.channel import wideband_mmwave_channel
-    from jstsp19_tpu.frontend import create_beamformer, qam4_training_frames, awgn, hbf
+    from jstsp19.channel import wideband_mmwave_channel
+    from jstsp19.frontend import create_beamformer, qam4_training_frames, awgn, hbf
 
     Nt, Nr, L, T = 4, 16, 2, 10
     ch = wideband_mmwave_channel(key, L, Nr, Nt, 2, 3, Nr, Nt)
@@ -145,9 +145,9 @@ def test_vamp_glm_quantized_channel():
     precision init finite — round 5; previously this path crashed on
     likelihood.y and, once unblocked, returned zeros (f32 cancellation
     at pvar=1e11).  Recovery must track the quantization-noise floor."""
-    from jstsp19_tpu.ops import KronDictOp
-    from jstsp19_tpu.solvers import vamp_glm
-    from jstsp19_tpu.solvers.estim import AwgnPrior, QuantizedLikelihood
+    from jstsp19.ops import KronDictOp
+    from jstsp19.solvers import vamp_glm
+    from jstsp19.solvers.estim import AwgnPrior, QuantizedLikelihood
 
     rng = np.random.default_rng(0)
     n, m, step = 32, 64, 0.25

@@ -9,8 +9,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from jstsp19_tpu.ops import KronDictOp
-from jstsp19_tpu.solvers import (
+from jstsp19.ops import KronDictOp
+from jstsp19.solvers import (
     CAwgnLikelihood,
     CAwgnPrior,
     SparsePrior,
@@ -176,13 +176,13 @@ def test_delays_driver_se_certifies_vamp_collapse():
     colored-noise level puts the information floor at ≈0.13 NMSE — see
     PARITY.md round 4.)
     """
-    from jstsp19_tpu.core import prng as _prng
-    from jstsp19_tpu.core.metrics import clamped_nmse
-    from jstsp19_tpu.frontend import hbf
-    from jstsp19_tpu.harness.pipeline import (
+    from jstsp19.core import prng as _prng
+    from jstsp19.core.metrics import clamped_nmse
+    from jstsp19.frontend import hbf
+    from jstsp19.harness.pipeline import (
         PointConfig, _dictionaries, _system_realization,
     )
-    from jstsp19_tpu.solvers import vamp_mmwave
+    from jstsp19.solvers import vamp_mmwave
 
     pc = PointConfig(L=6, T=15, num_nonzero=50, channel_quirks=True)
     nv = jnp.asarray(10 ** (-5 / 10), jnp.float32)

@@ -2,16 +2,16 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from jstsp19_tpu.core import prng
-from jstsp19_tpu.ops import KronDictOp
-from jstsp19_tpu.solvers.estim import (
+from jstsp19.core import prng
+from jstsp19.ops import KronDictOp
+from jstsp19.solvers.estim import (
     CAwgnPrior,
     CGMPrior,
     SparsePrior,
     ProbitLikelihood,
     QuantizedLikelihood,
 )
-from jstsp19_tpu.solvers.vamp_slm import vamp_slm, vamp_slm_se
+from jstsp19.solvers.vamp_slm import vamp_slm, vamp_slm_se
 
 
 def crandn(key, shape, var=1.0):

@@ -28,12 +28,7 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_PLATFORMS", "cpu")
-
 import jax
-
-jax.config.update("jax_platforms", "cpu")
-
 import jax.numpy as jnp
 import numpy as np
 
@@ -60,11 +55,11 @@ HYPERS = ["approx", "canonical"]
 
 
 def _realization(key, noise_var, *, T, ratio, L, hyper, Imax=100):
-    from jstsp19_tpu.channel import wideband_mmwave_channel
-    from jstsp19_tpu.core import prng
-    from jstsp19_tpu.core.metrics import clamped_nmse
-    from jstsp19_tpu.frontend import comm_system_training
-    from jstsp19_tpu.solvers import admm_hyperparams, ls_estimate, proposed_admm
+    from jstsp19.channel import wideband_mmwave_channel
+    from jstsp19.core import prng
+    from jstsp19.core.metrics import clamped_nmse
+    from jstsp19.frontend import comm_system_training
+    from jstsp19.solvers import admm_hyperparams, ls_estimate, proposed_admm
 
     Nt, Nr = 4, 32
     ch = wideband_mmwave_channel(
@@ -91,7 +86,7 @@ def _realization(key, noise_var, *, T, ratio, L, hyper, Imax=100):
 
 def main(n_mc=16, seed=0, recipes=None, snrs=None, ratios=None,
          hypers=None, out_name="delays_fingerprint.json"):
-    from jstsp19_tpu.core import prng
+    from jstsp19.core import prng
 
     global SNRS
     SNRS = snrs or SNRS
@@ -152,6 +147,7 @@ def main(n_mc=16, seed=0, recipes=None, snrs=None, ratios=None,
 
 
 if __name__ == "__main__":
+    jax.config.update("jax_platforms", "cpu")  # a CPU tool
     import argparse
 
     ap = argparse.ArgumentParser()

@@ -17,19 +17,14 @@ Two studies (see PARITY.md):
 
 Run:  python tools/parity_campaign.py families [n_mc]
       python tools/parity_campaign.py closure  [n_mc]
-(CPU; force-switches the platform like tests/conftest.py.)
+(CPU: pins the CPU platform when run as a script.)
 """
 import json
 import os
 import sys
 import time
 
-os.environ.setdefault("JAX_PLATFORMS", "cpu")
-
 import jax
-
-jax.config.update("jax_platforms", "cpu")
-
 import jax.numpy as jnp
 import numpy as np
 
@@ -46,7 +41,7 @@ FAMILIES = (
 
 
 def run_families(n_mc=64, seed=0):
-    from jstsp19_tpu.harness import EXPERIMENTS
+    from jstsp19.harness import EXPERIMENTS
 
     for fam in FAMILIES:
         t0 = time.time()
@@ -64,11 +59,11 @@ def _closure_realization(key, noise_var, *, T, ratio, Imax, quirks,
     """All estimators on the `comm_system_training` frontend (the
     plot_errorVSsnr_approx.m pipeline, extended with the conventional
     baselines the out-of-repo figs carry)."""
-    from jstsp19_tpu.channel import wideband_mmwave_channel
-    from jstsp19_tpu.core import prng
-    from jstsp19_tpu.core.metrics import clamped_nmse
-    from jstsp19_tpu.frontend import comm_system_training
-    from jstsp19_tpu.solvers import (
+    from jstsp19.channel import wideband_mmwave_channel
+    from jstsp19.core import prng
+    from jstsp19.core.metrics import clamped_nmse
+    from jstsp19.frontend import comm_system_training
+    from jstsp19.solvers import (
         ls_estimate,
         mc_svt,
         omp_mmv,
@@ -111,7 +106,7 @@ def _closure_realization(key, noise_var, *, T, ratio, Imax, quirks,
 def run_closure(n_mc=32, seed=0, Imax=100):
     import functools
 
-    from jstsp19_tpu.core import prng
+    from jstsp19.core import prng
 
     snrs = list(range(-15, 16, 5))
     results = []
@@ -167,7 +162,7 @@ def run_closure_sweeps(n_mc=32, seed=0, Imax=100):
     THIS frontend at their drivers' SNR of −5 dB?"""
     import functools
 
-    from jstsp19_tpu.core import prng
+    from jstsp19.core import prng
 
     nv = 10 ** (5 / 10) * 0.1  # −5 dB
     results = []
@@ -215,4 +210,5 @@ def main():
 
 
 if __name__ == "__main__":
+    jax.config.update("jax_platforms", "cpu")  # a CPU tool
     main()

@@ -25,8 +25,8 @@ import tempfile
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO) if REPO not in sys.path else None
 
-from jstsp19_tpu.parallel.distributed import ENV_PIN_CORES  # noqa: E402
-from jstsp19_tpu.parallel.launch import launch  # noqa: E402
+from jstsp19.parallel.distributed import ENV_PIN_CORES  # noqa: E402
+from jstsp19.parallel.launch import launch  # noqa: E402
 
 
 def main(argv=None) -> None:
@@ -51,7 +51,7 @@ def main(argv=None) -> None:
             launch(
                 nproc,
                 [
-                    "-m", "jstsp19_tpu.parallel.dist_worker",
+                    "-m", "jstsp19.parallel.dist_worker",
                     "--methods", "proposed",
                     "--imax", str(args.imax),
                     "--n-mc", str(n_mc),
@@ -98,8 +98,7 @@ def main(argv=None) -> None:
             "multi-process orchestration cost (coordinator + cross-process "
             "all-gather), not core contention. NMSE at every process count "
             "is identical to the single-process runner (tests/"
-            "test_distributed.py asserts this). On a TPU pod the same "
-            "worker code scales over hosts with DCN collectives."
+            "test_distributed.py asserts this)."
         ),
     }
     os.makedirs(os.path.dirname(args.out), exist_ok=True)

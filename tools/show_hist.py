@@ -23,12 +23,7 @@ import argparse
 import os
 import sys
 
-os.environ.setdefault("JAX_PLATFORMS", "cpu")
-
 import jax
-
-jax.config.update("jax_platforms", "cpu")
-
 import jax.numpy as jnp
 import numpy as np
 
@@ -120,9 +115,9 @@ def plot_gamp_history(hist, x_true=None, z_true=None, out_path="gamp_hist.png",
 
 def _demo_history(seed=0, n=256, m=128, k=16, wvar=1e-4):
     """The sparseAWGN demo problem of ``gampShowHist.m:9-16``."""
-    from jstsp19_tpu.ops import MatrixOp
-    from jstsp19_tpu.solvers import AwgnPrior, CAwgnLikelihood, SparsePrior
-    from jstsp19_tpu.solvers.gamp_full import GampOptions, gamp_est
+    from jstsp19.ops import MatrixOp
+    from jstsp19.solvers import AwgnPrior, CAwgnLikelihood, SparsePrior
+    from jstsp19.solvers.gamp_full import GampOptions, gamp_est
 
     rng = np.random.default_rng(seed)
     A = jnp.asarray(rng.standard_normal((m, n)) / np.sqrt(m), jnp.float32)
@@ -151,4 +146,5 @@ def main():
 
 
 if __name__ == "__main__":
+    jax.config.update("jax_platforms", "cpu")  # a CPU tool
     main()
